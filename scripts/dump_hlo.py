@@ -1,5 +1,9 @@
 #!/usr/bin/env python
-"""Dump the optimized HLO of the tracking step for fusion inspection."""
+"""Dump the optimized HLO of the 12-channel tracking step for fusion
+inspection, on the default backend.
+
+    python scripts/dump_hlo.py    # env B, U: block ms and unroll; OUT: file
+"""
 
 from __future__ import annotations
 
@@ -41,7 +45,7 @@ lowered = jax.jit(_track_device, static_argnums=(0, 5, 7)).lower(
     cfg, *args, 128, state0, 0)
 comp = lowered.compile()
 txt = comp.as_text()
-out = os.environ.get("OUT", "/tmp/track_hlo.txt")
+out = os.environ.get("OUT", "track_hlo.txt")
 with open(out, "w") as f:
     f.write(txt)
 print(f"wrote {len(txt)} chars to {out}")

@@ -1,11 +1,15 @@
-"""Measure time-shard warm-up vs stitched-output divergence (VERDICT r1 #6).
+"""Measure time-shard warm-up vs stitched-output divergence.
 
+Correctness sweep behind config.time_shard_warmup_ms (no timing: it runs
+on the CPU backend, with 8 virtual devices for the mesh).
 Sequential run = truth.  For each warmup, track the same capture with 4
 time shards and compare stitched observables.  Metrics target what
 navigation consumes: nav-bit signs (i_p), sample counters (pseudoranges),
 carrier frequency.  Usage: python scripts/warmup_sweep.py [cn0_dbhz]
 """
+import os
 import sys
+os.environ.setdefault("XLA_FLAGS", "--xla_force_host_platform_device_count=8")
 import jax; jax.config.update("jax_platforms", "cpu")
 import numpy as np, softgnss_tpu as sg
 from softgnss_tpu.pipeline import run_receiver

@@ -1,6 +1,6 @@
-"""softgnss_tpu — a TPU-native GPS L1 C/A software receiver framework.
+"""softgnss_tpu — a GPS L1 C/A software receiver framework in JAX.
 
-A brand-new JAX/XLA/Pallas implementation of a full GPS L1 C/A software
+A brand-new JAX/XLA implementation of a full GPS L1 C/A software
 receiver: C/A (Gold) code generation, FFT-based parallel code-phase
 acquisition over a Doppler grid, multi-channel DLL/PLL tracking with
 integer-NCO carrier/code generators and early-prompt-late correlator banks,
@@ -9,7 +9,7 @@ decoding, Kepler orbit propagation, and least-squares PVT with tropospheric
 correction, DOP, and geodetic/UTM output.
 
 Capability parity target: perrysou/SoftGNSS-python (see SURVEY.md).  This is
-*not* a port — the architecture is TPU-first:
+*not* a port — the architecture is accelerator-first:
 
 * acquisition is one batched FFT/multiply/IFFT over the whole
   (PRN x Doppler x code-phase) tensor (reference: acquisition.py:92-133 loops
@@ -20,8 +20,8 @@ Capability parity target: perrysou/SoftGNSS-python (see SURVEY.md).  This is
 * carrier and code phase run on exact integer NCOs (uint32 / Q40 fixed point)
   so the hot path is pure f32/int vector math — no float64 in the per-sample
   compute,
-* the capture lives in device HBM and is consumed with dynamic slices; there
-  is no host I/O inside the hot loop.
+* the capture lives in device memory and is consumed with dynamic slices;
+  there is no host I/O inside the hot loop.
 
 The package enables ``jax_enable_x64`` at import: the code-phase NCO carries
 Q40 fixed point in int64, and the cold-path geodesy/orbit math

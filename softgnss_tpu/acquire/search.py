@@ -2,12 +2,14 @@
 
 Searches every PRN over a Doppler grid for code phase and carrier frequency
 via FFT circular correlation, then refines carrier frequency with a zoom
-FFT — the reference's search math (acquisition.py:27-204), batched TPU-first:
+FFT — the reference's search math (acquisition.py:27-204), batched for an
+accelerator:
 
 * the reference loops 32 PRNs x 29 Doppler bins in Python, doing ~3.7k
   single-row FFT/IFFT pairs (reference: acquisition.py:92-133); here the whole
   (PRN-chunk x doppler x code-phase) tensor goes through one batched
-  FFT -> multiply -> IFFT -> |.|^2, chunked over PRNs only to bound HBM,
+  FFT -> multiply -> IFFT -> |.|^2, chunked over PRNs only to bound
+  device memory,
 * peak/second-peak detection is a vectorized masked argmax over the grid
   (reference: acquisition.py:139-164 builds per-case index ranges; we use the
   equivalent circular-distance exclusion mask),
@@ -17,9 +19,9 @@ FFT — the reference's search math (acquisition.py:27-204), batched TPU-first:
 Documented divergences from the reference:
 * the fine-frequency stage is a zoom FFT (coarse-bin mix -> boxcar
   decimation -> small FFT) instead of the reference's 8x-zero-padded
-  multi-million-point FFT (acquisition.py:179-191): the giant FFT does not
-  compile on TPU, wastes >99% of its spectrum, and the reference's version
-  additionally drops a +4-bin offset when mapping its argmax back to Hz (a
+  multi-million-point FFT (acquisition.py:179-191): the giant FFT wastes
+  >99% of its spectrum, and the reference's version additionally drops
+  a +4-bin offset when mapping its argmax back to Hz (a
   constant ~fs/fftNumPts*4 Hz underestimate).  The zoom search has equal or
   finer resolution (fine_freq_resolution) and starts the PLL on frequency.
 """
@@ -76,11 +78,12 @@ def fine_freq_resolution(config: ReceiverConfig) -> float:
 def _corr_fft_len(config: ReceiverConfig) -> int:
     """FFT length for the code-phase correlation.
 
-    TPU XLA only supports power-of-two FFTs (38192-point aborts the
-    compiler), so for non-power-of-two samples_per_code the circular
-    correlation is computed as a zero-padded LINEAR correlation of length
+    For non-power-of-two samples_per_code the circular correlation is
+    computed as a zero-padded power-of-two LINEAR correlation of length
     >= 2N, folded back circularly in :func:`_prn_block` — numerically the
-    same grid the reference's direct N-point transform produces.
+    same grid the reference's direct N-point transform produces.  The fold
+    was forced by an earlier backend; a GPU FFT accepts 38192 points, and
+    the fold is kept until the card measures native against folded.
     """
     spc = config.samples_per_code
     if spc & (spc - 1) == 0:
@@ -102,11 +105,12 @@ def _baseband_ffts(config: ReceiverConfig, long_signal: jnp.ndarray):
 
     # reference mixes with sin/cos separately (acquisition.py:103-117);
     # sin(th) + j*cos(th) = j*exp(-j*th), and the global j drops under |.|^2.
-    # Phases come from the exact uint32 carrier NCO + polynomial sine: TPU
-    # has no f64/c128 transcendentals (a complex128 exp aborts the compiler)
-    # and f32 phase ramps lose precision by the end of a 1 ms block.  The
-    # same phase-0 mixer serves every millisecond: each is correlated
-    # independently and |.|^2 discards the inter-ms carrier phase.
+    # Phases come from the exact uint32 carrier NCO + polynomial sine:
+    # f32 phase ramps lose precision by the end of a 1 ms block, and the
+    # integer NCO keeps every bin's phase exact without f64
+    # transcendentals.  The same phase-0 mixer serves every millisecond:
+    # each is correlated independently and |.|^2 discards the inter-ms
+    # carrier phase.
     freqs = jnp.asarray(config.doppler_bin_freqs, jnp.float64)      # (B,)
     steps = carrier_step_u32(freqs, fs)                              # (B,) i32
     k32 = jnp.arange(spc, dtype=jnp.int32)
@@ -200,10 +204,10 @@ def _prn_block(config: ReceiverConfig, xs, sig0dc, code_fd, gold,
 
     # --- fine carrier frequency over 10 ms: zoom FFT -----------------------
     # The reference takes an 8x-zero-padded multi-million-point FFT of the
-    # code-wiped signal (acquisition.py:166-193) — the TPU compiler aborts
-    # on 4M-point FFTs, and almost all of that spectrum is discarded.
-    # TPU-native equivalent: mix down by the COARSE bin frequency (exact
-    # uint32-NCO carrier), boxcar-decimate, and take a small FFT around DC;
+    # code-wiped signal (acquisition.py:166-193), and almost all of that
+    # spectrum is discarded.  Equivalent here: mix down by the COARSE bin
+    # frequency (exact uint32-NCO carrier), boxcar-decimate, and take a
+    # small FFT around DC;
     # fine = coarse + argmax within +/-acq_fine_band_hz.  Resolution is
     # fine_freq_resolution(config) (~9 Hz at the reference workload, at
     # least as fine as the reference's fs/fft_pts).
@@ -227,8 +231,7 @@ def _prn_block(config: ReceiverConfig, xs, sig0dc, code_fd, gold,
         sin_v, cos_v = carrier_sin_cos(jnp.int32(0), w,
                                        jnp.arange(fine_n, dtype=jnp.int32))
         # decimate I and Q as real arrays; go complex only on the short
-        # decimated series (large complex intermediates hit TPU
-        # Unimplemented paths)
+        # decimated series
         dec_i = jnp.pad(x * cos_v, (0, pad)).reshape(n_dec, decim).sum(axis=1)
         dec_q = jnp.pad(x * sin_v, (0, pad)).reshape(n_dec, decim).sum(axis=1)
         dec = (dec_i - 1j * dec_q).astype(jnp.complex64)
@@ -253,7 +256,7 @@ def _acquire_device(config: ReceiverConfig, long_signal: jnp.ndarray,
     code_fd = jnp.conj(jnp.fft.fft(codes.astype(jnp.complex64), fft_n))  # (P, M)
     gold = jnp.asarray(gold_codes()[prn_list - 1], jnp.float32)      # (P, 1023)
 
-    # chunk over PRNs: the (chunk, B, M) grid bounds HBM footprint
+    # chunk over PRNs: the (chunk, B, M) grid bounds device-memory footprint
     chunk = min(config.acq_prn_chunk, len(prn_list))
     n_prn = len(prn_list)
     pad = (-n_prn) % chunk

@@ -16,11 +16,12 @@ import sys
 import numpy as np
 
 import softgnss_tpu
+from softgnss_tpu.compile_cache import enable_compile_cache
 from softgnss_tpu.config import ReceiverConfig, default_config, fast_config
 
 BANNER = rf"""
-softgnss_tpu v{softgnss_tpu.__version__} — TPU-native GPS L1 C/A software receiver
-  JAX/XLA/Pallas implementation: batched FFT acquisition, scan-based
+softgnss_tpu v{softgnss_tpu.__version__} — GPS L1 C/A software receiver
+  JAX/XLA implementation: batched FFT acquisition, scan-based
   multi-channel DLL/PLL tracking, nav decode, least-squares PVT.
 """
 
@@ -57,7 +58,7 @@ def build_config(args) -> ReceiverConfig:
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
-        prog="softgnss_tpu", description="TPU-native GPS L1 C/A software receiver")
+        prog="softgnss_tpu", description="GPS L1 C/A software receiver (JAX)")
     parser.add_argument("--file", help="raw IF capture file")
     parser.add_argument("--synthetic", action="store_true",
                         help="run the built-in synthetic golden scenario")
@@ -102,6 +103,7 @@ def main(argv=None) -> int:
     if args.cpu:
         import jax
         jax.config.update("jax_platforms", "cpu")
+    enable_compile_cache()
 
     config = build_config(args)
     from softgnss_tpu import io as sio

@@ -6,11 +6,12 @@ block sizes) is then a Python-level constant inside the traced program, which
 keeps all shapes static for XLA.
 
 Covers every knob of the reference settings object
-(reference: initialize.py:80-185) plus TPU-native knobs (chunking, window
-padding, mesh axis names).  Unlike the reference — which is configured by
-editing source (reference: README.md:18-19) — configs here are immutable
-values; use :func:`dataclasses.replace` (re-exported as ``with_options``) to
-derive variants, and the CLI exposes ``--set key=value`` overrides.
+(reference: initialize.py:80-185) plus accelerator-execution knobs
+(chunking, window padding, mesh axis names).  Unlike the reference —
+which is configured by editing source (reference: README.md:18-19) —
+configs here are immutable values; use :func:`dataclasses.replace`
+(re-exported as ``with_options``) to derive variants, and the CLI exposes
+``--set key=value`` overrides.
 """
 
 from __future__ import annotations
@@ -18,6 +19,10 @@ from __future__ import annotations
 import dataclasses
 import math
 from dataclasses import dataclass
+
+
+#: valid values of ReceiverConfig.correlator_impl
+CORRELATOR_IMPLS = ("auto", "onehot", "gather")
 
 
 @dataclass(frozen=True)
@@ -77,8 +82,8 @@ class ReceiverConfig:
     #: bit-transition hedge, acquisition.py:129-133; sensitivity floor
     #: ~47 dB-Hz at threshold 2.5).  K > 2 sums K per-ms correlation powers
     #: instead — beyond the reference, ~5 log10(K/2) dB lower floor (K=10
-    #: reaches ~41 dB-Hz; measured curves in BASELINE.md) at negligible TPU
-    #: cost since the batched FFT grid is compute-bound for ~0.3 ms total
+    #: reaches ~41 dB-Hz; measured curves in BASELINE.md); each extra
+    #: millisecond adds one more pass over the batched FFT grid
     acq_noncoherent_ms: int = 2
 
     # --- tracking loops ----------------------------------------------------
@@ -210,9 +215,11 @@ class ReceiverConfig:
     #: GPS L1 carrier frequency, Hz (used by the signal simulator)
     l1_freq: float = 1_575_420_000.0
 
-    # --- TPU-native knobs ------------------------------------------------------
+    # --- accelerator-execution knobs ------------------------------------------
+    # The defaults below predate any GPU measurement; they are kept until a
+    # sweep on the card re-tunes them.
     #: PRNs per acquisition chunk: the (chunk, doppler, samples) correlation
-    #: tensor is materialized per chunk to bound HBM footprint
+    #: tensor is materialized per chunk to bound device-memory footprint
     acq_prn_chunk: int = 8
     #: extra samples beyond samples_per_code in the fixed tracking window
     #: (covers code-NCO block-size wander of +/- a few samples); the window
@@ -235,40 +242,11 @@ class ReceiverConfig:
     #: unroll factor of the per-ms tracking scan (amortizes per-iteration
     #: loop overhead; the recurrence itself stays sequential)
     track_unroll: int = 4
-    #: correlator strategy: 'auto' (resolve per backend — see
-    #: :attr:`resolved_correlator`), 'onehot' (gather-free tiled
-    #: contraction — the XLA fast path, see softgnss_tpu.track.tables),
-    #: 'pallas' (the same math fused into one Mosaic kernel per ms,
-    #: avoiding the one-hot / baseband HBM round-trips, see
-    #: softgnss_tpu.track.pallas_kernel), 'megakernel' (a whole
-    #: track_block_ms block per Mosaic kernel with loop filters and NCO
-    #: state carried in VMEM scratch — amortizes the per-launch cost that
-    #: dominates the per-ms kernel; measured ~4x 'pallas' on v5e, see
-    #: softgnss_tpu.track.megakernel), or 'gather' (direct per-sample
-    #: table lookup, the reference formulation — exact but pathologically
-    #: slow on TPU)
+    #: correlator strategy: 'auto' (= 'onehot'), 'onehot' (gather-free
+    #: tiled contraction, see softgnss_tpu.track.tables), or 'gather'
+    #: (direct per-sample table lookup — the reference formulation, kept
+    #: as the plain cross-check path)
     correlator_impl: str = "auto"
-    #: fused-kernel contraction variant: 'mxu' (code x one-hot batched
-    #: matmul, then masked reductions) or 'vpu' (one-hot masked sums)
-    pallas_contraction: str = "mxu"
-    #: cap on tiles per fused-kernel grid step (the largest divisor of the
-    #: per-plane tile count <= the cap is used).  Fewer, fatter grid steps
-    #: amortize per-step Mosaic overhead at the cost of unrolled kernel
-    #: size; 0 = default cap (32)
-    pallas_k_tiles: int = 0
-    #: megakernel frame sourcing: True fuses the frames builder's
-    #: slab-DMA + sliding-roll prologue INTO the tracking kernel (per-ms
-    #: frames live only in VMEM scratch; the (r, C, win/4) HBM frames
-    #: array and its write+read round-trip disappear along with the
-    #: separate builder launch); False runs build_frames as its own
-    #: pallas_call feeding the kernel through a pipelined BlockSpec input.
-    #: Measured on v5e (BASELINE.md; re-measured round 5 under the
-    #: split-row layout): the separate builder WINS (14.2 vs 14.5
-    #: us/step) — fused, the residual rolls serialize with the
-    #: correlator instead of overlapping the builder's DMA waits,
-    #: costing more than the saved frames round-trip.  Kept as an option
-    #: (it saves ~29 MB HBM per block; may win where HBM is tighter)
-    mega_fused_frames: bool = False
     #: mesh axis names for sharded runs
     time_axis: str = "time"
     channel_axis: str = "channel"
@@ -323,9 +301,7 @@ class ReceiverConfig:
     def track_frame_pre(self) -> int:
         """Block-mode frame pre-margin: nominal sample offset of a true ms
         boundary inside its static frame (half the frame slack).  0 when
-        window blocking is off (the per-ms path; note the pallas
-        correlator requires block mode and runs with a nonzero margin —
-        its PHASE_BIAS bound depends on it).
+        window blocking is off (the per-ms path).
 
         Auto bound (track_frame_margin=0): the ms boundaries drift from the
         nominal ``j*samples_per_code`` grid by at most ~1 chip of DLL
@@ -346,62 +322,13 @@ class ReceiverConfig:
     track_pack_size: int = 2
 
     @property
-    def _mega_capable(self) -> bool:
-        """Whether the multi-ms megakernel's int32-view framing and
-        in-kernel integer ranges fit this front end, so ``'auto'``
-        degrades gracefully instead of tripping the kernel's loud range
-        asserts (see track.megakernel._check_kernel_ranges /
-        tables.mega_lane_tables)."""
-        # NB: the frames builder's sliding-roll residual shift
-        # (megakernel._builder_kernel) is wrap-free for ANY window
-        # geometry, so no extra alignment condition is needed here.
-        if not (self.track_block_ms > 1 and self.samples_per_code % 4 == 0
-                and self.track_tile % 4 == 0):
-            return False
-        # blk rides a 16-bit in-kernel quotient (one code period per ms
-        # must fit 16 bits with slack) — >= ~65.5 MHz front ends don't
-        if self.samples_per_code + 64 >= (1 << 16):
-            return False
-        from softgnss_tpu.track import tables as _tables
-
-        try:
-            s = _tables.subdivision(self)
-        except ValueError:
-            return False
-        # the three taps are read at bits hc, hc+ds, hc+2*ds of ONE
-        # 32-bit funnel window, and the joint-word table caps at 16 words
-        if 2 * int(round(self.dll_correlator_spacing * s)) > 31:
-            return False
-        # the per-lane sub-chip base offsets ride 15 bits of the last
-        # joint word (tables.mega_lane_tables raises beyond it)
-        if _tables.mega_hb_span(self) >= (1 << 15) - 8:
-            return False
-        return _tables.mega_n_words(self) <= 16
-
-    @property
     def track_pack(self) -> int:
         """Samples per capture word in the tracking hot path: >1 when the
         int8 capture is consumed through an int16/int32 view (fast batched
-        slicing + byte-plane-ordered correlation, see track.scan).  The
-        megakernel always rides the int32 view (pack=4): its per-channel
-        block buffers are sliced at int32 granularity (the measured-fast
-        XLA gather) and its per-ms frames fetched by in-kernel DMA."""
-        if self.resolved_correlator == "megakernel":
-            if not self._mega_capable:
-                raise ValueError(
-                    "correlator_impl='megakernel' needs track_block_ms > 1, "
-                    "samples_per_code/track_tile divisible by 4, "
-                    "samples_per_code + 64 < 2^16, and a correlator spacing "
-                    "whose joint code words fit the 32-bit funnel window "
-                    "(2*round(spacing*subdivision) <= 31, <= 16 words); got "
-                    f"spc={self.samples_per_code}, tile={self.track_tile}, "
-                    f"block_ms={self.track_block_ms}, "
-                    f"spacing={self.dll_correlator_spacing} — use the "
-                    "onehot/pallas correlators for this front end")
-            return 4
+        slicing + byte-plane-ordered correlation, see track.scan)."""
         p = self.track_pack_size
         if (p in (2, 4)
-                and self.correlator_impl in ("auto", "onehot", "pallas")
+                and self.resolved_correlator == "onehot"
                 and self.track_block_ms > 1
                 and self.samples_per_code % p == 0 and self.track_tile % p == 0):
             return p
@@ -409,27 +336,9 @@ class ReceiverConfig:
 
     @property
     def resolved_correlator(self) -> str:
-        """The correlator implementation actually used by the tracker.
-
-        'auto' picks the multi-ms fused megakernel on TPU whenever its
-        int32-view block framing fits the front end (measured ~2 Gsps vs
-        ~0.77 for the per-ms 'pallas' kernel and ~0.5 for 'onehot' on
-        v5e), and the XLA one-hot contraction everywhere else (CPU/GPU,
-        where the Mosaic kernels would run interpreted).  Explicit values
-        pass through untouched."""
-        if self.correlator_impl != "auto":
-            return self.correlator_impl
-        import jax
-
-        if jax.default_backend() == "tpu":
-            if self._mega_capable:
-                return "megakernel"
-            p = self.track_pack_size
-            if (p in (2, 4) and self.track_block_ms > 1
-                    and self.samples_per_code % p == 0
-                    and self.track_tile % p == 0):
-                return "pallas"
-        return "onehot"
+        """The correlator implementation actually used by the tracker:
+        'auto' is the one-hot contraction on every backend."""
+        return "onehot" if self.correlator_impl == "auto" else self.correlator_impl
 
     @property
     def track_window(self) -> int:
@@ -470,6 +379,12 @@ class ReceiverConfig:
         # acquisition reads acquisition_ms; tracking consumes ~1 code period
         # per ms plus the initial code-phase offset (< 1 code period).
         return self.skip_samples + (self.ms_to_process + 2) * self.samples_per_code
+
+    def __post_init__(self):
+        if self.correlator_impl not in CORRELATOR_IMPLS:
+            raise ValueError(
+                f"correlator_impl={self.correlator_impl!r}; valid values are "
+                + ", ".join(repr(v) for v in CORRELATOR_IMPLS))
 
     def with_options(self, **kwargs) -> "ReceiverConfig":
         return dataclasses.replace(self, **kwargs)

@@ -2,9 +2,9 @@
 
 Covers the reference's file handling (open/seek/np.fromfile,
 initialize.py:361-372,466-481, tracking.py:154) and probeData QC
-(initialize.py:330-414), redesigned for the TPU pipeline: the capture is
-read ONCE into a contiguous int8 host array (memory-mapped for large
-files) and shipped to device HBM, instead of per-millisecond fromfile
+(initialize.py:330-414), redesigned for the device pipeline: the capture
+is read ONCE into a contiguous int8 host array (memory-mapped for large
+files) and shipped to device memory, instead of per-millisecond fromfile
 calls inside the tracking hot loop.
 
 Sample encodings (config.data_format):

@@ -1,6 +1,6 @@
 """Native (C++) IO runtime: sample unpackers + probe statistics.
 
-The compute path is JAX/XLA/Pallas; the byte-level capture decoding that
+The compute path is JAX/XLA; the byte-level capture decoding that
 feeds it is native C++ (softgnss_tpu/native/unpack.cpp), loaded via
 ctypes.  The library is compiled on demand with the system toolchain and
 cached next to the source; softgnss_tpu.io falls back to the NumPy

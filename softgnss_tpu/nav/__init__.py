@@ -1,7 +1,8 @@
 """Navigation layer: bit sync, nav-message codec, orbits, geodesy, PVT.
 
 Covers the reference's postNavigation.py / ephemeris.py / geoFunctions
-capability surface (SURVEY.md §2 components 10-19), re-designed TPU-first:
+capability surface (SURVEY.md §2 components 10-19), re-designed as array
+programs:
 
 * parity checking and bit handling are vectorized array ops, not per-word
   Python string loops (reference: postNavigation.py:441-521, ephemeris.py),

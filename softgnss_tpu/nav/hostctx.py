@@ -1,10 +1,12 @@
 """Host (CPU) device context for the cold-path f64 navigation math.
 
 Navigation is float64 math on tiny arrays with ~1e-9 precision needs
-(geodesy tolerances ~1e-12, SURVEY.md hard parts 4-5); accelerators
-emulate f64 both slowly (~50x) and, on this platform, imprecisely.  The
-device->host boundary sits at the per-ms tracking observables: everything
-downstream runs under :func:`host_context`.
+(geodesy tolerances ~1e-12, SURVEY.md hard parts 4-5), where device
+dispatch and compilation outweigh the arithmetic.  The device->host
+boundary sits at the per-ms tracking observables: everything downstream
+runs under :func:`host_context`.  The pin predates any GPU measurement
+(the H100 has native f64); it stays until the card measures device
+against host navigation.
 """
 
 from __future__ import annotations

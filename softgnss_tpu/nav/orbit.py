@@ -1,7 +1,7 @@
 """Satellite position/clock from broadcast ephemeris — vmapped Kepler.
 
 Math identical to reference geoFunctions/__init__.py:745-885 (satpos,
-check_t), re-designed TPU-first: one jitted program computes every
+check_t), re-designed as one jitted program: it computes every
 satellite at once via ``vmap`` with a fixed-count Kepler iteration
 (10 fixed-point steps, the reference's cap at :846 — convergence for GPS
 eccentricities e<0.03 is far below its 1e-12 tolerance by then), instead

@@ -7,7 +7,7 @@ agreeing), confirm a candidate iff another candidate lies exactly 6000 ms
 later AND the two 30-bit words starting there pass parity after 20-ms bit
 integration.
 
-TPU-first: the correlation runs for ALL channels at once as a single
+Vectorized: the correlation runs for ALL channels at once as a single
 batched matmul against a (160,) kernel (one `jnp.convolve`-style valid
 correlation per channel under vmap); candidate confirmation is tiny host
 logic over the few surviving indices.  Parity is checked for all
@@ -80,8 +80,8 @@ def find_preambles(i_p: np.ndarray, status: list[str],
     from softgnss_tpu.nav.hostctx import host_context
 
     signs = np.where(i_p[:, search_start_offset:] > 0, 1, -1)
-    # host backend: a (C, n_ms) correlation is microseconds of work; TPU
-    # dispatch + compile would dominate
+    # host backend: a (C, n_ms) correlation is microseconds of work;
+    # device dispatch + compile would dominate
     with host_context():
         xcorr = np.asarray(_preamble_correlation(jnp.asarray(signs)))
 

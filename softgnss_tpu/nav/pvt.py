@@ -8,7 +8,7 @@ az/el, optional Goad-Goodman troposphere; residual
 ``[-(LOS)/obs, 1]`` (the reference normalizes by the observation, not the
 range — reproduced for DOP parity); DOP from inv(A^T A).
 
-TPU-first design differences (results equal to f64 roundoff):
+Design differences (results equal to f64 roundoff):
 
 * all satellites are processed as one vectorized batch with a validity
   mask instead of a Python loop — the channel dimension stays static so
@@ -44,10 +44,10 @@ def _det3(m):
 def inv4(a):
     """Explicit adjugate inverse + determinant of a 4x4 matrix.
 
-    XLA's TPU LuDecomposition custom-call supports only f32/c64; the PVT
-    normal equations are f64, so the 4x4 solve/inverse is written as
-    closed-form cofactors (exact in f64, and faster than LU at this size).
-    Returns (inverse, det).
+    The PVT normal equations are f64 and 4x4, so the solve/inverse is
+    written as closed-form cofactors (exact in f64, no LU custom call).
+    The form was forced by an earlier backend's f32-only LU; it stays
+    until a measurement on the card favours LU.  Returns (inverse, det).
     """
     rows = [0, 1, 2, 3]
     cof = []

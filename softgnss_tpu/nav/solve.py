@@ -6,11 +6,11 @@ then per measurement epoch compute pseudoranges from the tracked
 ``absolute_sample`` counters, propagate satellites, and solve
 least-squares PVT with elevation masking and geodetic/UTM conversion.
 
-TPU-first: the measurement-epoch loop is ONE jitted ``lax.scan`` carrying
-the elevation mask — per epoch it does a masked min for pseudoranges, a
-vmapped Kepler propagation, the fixed-iteration masked Gauss-Newton PVT,
-and cart2geo — instead of the reference's Python loop calling per-satellite
-routines (postNavigation.py:199-301).
+Array program: the measurement-epoch loop is ONE jitted ``lax.scan``
+carrying the elevation mask — per epoch it does a masked min for
+pseudoranges, a vmapped Kepler propagation, the fixed-iteration masked
+Gauss-Newton PVT, and cart2geo — instead of the reference's Python loop
+calling per-satellite routines (postNavigation.py:199-301).
 
 Documented divergences (reference quirks NOT replicated, SURVEY.md §7):
 

@@ -3,7 +3,7 @@
 This is a freshly written, vectorized re-derivation of the reference's
 *mathematics* (the equations in SURVEY.md §2/§3, cited per function below) in
 NumPy float64.  It exists because the reference itself is Python 2 and cannot
-run here (SURVEY.md, preamble): tests compare the TPU receiver's correlator
+run here (SURVEY.md, preamble): tests compare the JAX receiver's correlator
 time series and acquisition grids against this oracle (<1e-3 RMS target,
 BASELINE.md), and bench.py uses it as the self-measured CPU baseline.
 
@@ -137,7 +137,7 @@ def oracle_track_channel(config: ReceiverConfig, signal: np.ndarray, prn: int,
 # Full-chain parity: these functions re-derive the reference's bit sync,
 # pseudorange, orbit propagation, and least-squares math in plain NumPy
 # float64 loops, independent of the jitted receiver (nav/preamble, nav/solve,
-# nav/orbit, nav/pvt implement the same equations TPU-first).
+# nav/orbit, nav/pvt implement the same equations as array programs).
 
 _PREAMBLE = np.array([1, -1, -1, -1, 1, -1, 1, 1], np.float64)
 _GM = 3.986005e14

@@ -1,7 +1,7 @@
 """Distribution layer: device meshes, sharded acquisition and tracking.
 
 The reference is single-process/single-threaded (SURVEY.md §2 parallelism
-table); this package supplies the TPU-native equivalents:
+table); this package supplies the device-mesh equivalents:
 
 * **satellite (PRN) sharding** of the acquisition search grid — the
   (PRN x Doppler x code-phase) tensor partitions cleanly on the PRN axis

@@ -3,13 +3,14 @@
 The receiver's mesh has two named axes (config.time_axis, config.channel_axis):
 
 * ``'time'``  — partitions the IF capture into contiguous blocks
-  (sequence-parallel axis; halo exchange across it rides ICI),
+  (sequence-parallel axis; halos are exchanged with ``lax.ppermute``),
 * ``'channel'`` — partitions tracking channels / acquisition PRNs
   (data-parallel axis; no communication until observables are gathered).
 
-On a multi-host pod slice, call :func:`initialize_distributed` first
-(wraps jax.distributed.initialize), then build the mesh over all global
-devices — collectives ride ICI within a slice and DCN across hosts.
+On several hosts, call :func:`initialize_distributed` first (wraps
+jax.distributed.initialize), then build the mesh over all global devices.
+The cards of one GPU host are joined all to all, so the mesh is built in
+plain device order: the algorithm alone decides its shape.
 """
 
 from __future__ import annotations
@@ -18,7 +19,6 @@ import logging
 
 import jax
 import numpy as np
-from jax.experimental import mesh_utils
 from jax.sharding import Mesh
 
 from softgnss_tpu.config import ReceiverConfig
@@ -54,7 +54,7 @@ def make_mesh(axis_sizes: dict[str, int], devices=None) -> Mesh:
         avail = jax.devices()
         if n > len(avail):
             raise ValueError(f"mesh needs {n} devices, only {len(avail)} available")
-        devices = mesh_utils.create_device_mesh(shape, devices=avail[:n])
+        devices = np.asarray(avail[:n], dtype=object).reshape(shape)
     return Mesh(devices, tuple(axis_sizes.keys()))
 
 

@@ -3,7 +3,7 @@
 Parity with the reference's three .plot() dashboards + probeData plots
 (acquisition.py:206-256, tracking.py:297-426, postNavigation.py:307-439,
 initialize.py:377-414), rendered headless to PNG files (the runtime is a
-batch/TPU environment; no interactive windows).  All plotting is strictly
+batch environment; no interactive windows).  All plotting is strictly
 post-hoc on host arrays — never in the compute path.
 """
 

@@ -1,11 +1,11 @@
-"""GPS C/A (Gold) PRN code generation — TPU-native.
+"""GPS C/A (Gold) PRN code generation — vectorized.
 
 The C/A code for PRN *p* is ``-G1 * delay(G2, d_p)`` where G1/G2 are the two
 maximal-length sequences of the 10-stage LFSRs with feedback taps (3,10) and
 (2,3,6,8,9,10), and ``d_p`` is the per-PRN G2 delay
 (reference: initialize.py:234-302).
 
-TPU-first design: G1 and G2 are PRN-independent, so we run each LFSR **once**
+Design: G1 and G2 are PRN-independent, so we run each LFSR **once**
 as a ``lax.scan`` over 1023 steps, then produce all PRNs at once with a single
 vectorized modular gather for the per-PRN circular delays — instead of the
 reference's 32 independent Python LFSR loops (initialize.py:269-298).
@@ -116,7 +116,7 @@ def resample_indices(config: ReceiverConfig) -> np.ndarray:
 def ca_table(config: ReceiverConfig, num_prn: int = 32) -> np.ndarray:
     """All C/A codes resampled to the sampling rate, (num_prn, samples_per_code) f32.
 
-    One gather over the chip-index table — the TPU replacement for the
-    reference's per-PRN upsampling loop (reference: initialize.py:215-230).
+    One gather over the chip-index table — the vectorized replacement for
+    the reference's per-PRN upsampling loop (reference: initialize.py:215-230).
     """
     return gold_codes(num_prn)[:, resample_indices(config)].astype(np.float32)

@@ -1,10 +1,11 @@
 """Integer numerically-controlled oscillators (NCOs) for carrier and code.
 
 The reference generates carrier/code phase with float64 ``linspace``/``arange``
-per block (reference: tracking.py:166-201).  On TPU, float64 vector math is
-emulated and slow, while float32 phase ramps lose ~1e-2 rad at the end of a
-38192-sample block (value ~6e4 rad, eps32 ~1.2e-7).  We instead use *exact*
-integer phase accumulators — the same trick real GNSS hardware NCOs use:
+per block (reference: tracking.py:166-201).  float32 phase ramps lose
+~1e-2 rad at the end of a 38192-sample block (value ~6e4 rad, eps32
+~1.2e-7), and float64 vector math in the per-sample hot path is costly on
+accelerators.  We instead use *exact* integer phase accumulators — the
+same trick real GNSS hardware NCOs use:
 
 * **Carrier**: phase in uint32 "turns" (2^32 counts per cycle).  Per-sample
   phase ``p0 + w*k`` uses natural int32 wraparound == mod 2^32.  Converting to
@@ -16,9 +17,9 @@ integer phase accumulators — the same trick real GNSS hardware NCOs use:
   arithmetic, so the tracking recurrence is bit-reproducible for a given
   Q40 step sequence and invariant to channel/time sharding on a platform.
   Across platforms, the f64->Q40 quantization of the loop-filter output can
-  differ by 1 ulp (TPU emulates f64), occasionally moving a block boundary
-  by one sample — the same class of divergence the float64 original has
-  across BLAS variants.
+  differ by 1 ulp (f64 rounding differs by backend), occasionally moving
+  a block boundary by one sample — the same class of divergence the
+  float64 original has across BLAS variants.
 
 Requires jax_enable_x64 (int64); enabled at package import.
 """
@@ -85,10 +86,11 @@ def ceil_chip_index(phase_q):
 def sin_turns(x):
     """sin(2*pi*x) for x in turns, via a fused minimax polynomial.
 
-    jnp.sin/cos lower to non-fusing transcendental calls on TPU (~14 us per
-    38k-vector inside a scan step); this 5-term odd polynomial on the folded
-    quadrant fuses into the surrounding elementwise graph and is exact to
-    ~4e-6 absolute in f32 — far below the correlator noise floor.
+    A 5-term odd polynomial on the folded quadrant: pure multiply-adds
+    that fuse into the surrounding elementwise graph, exact to ~4e-6
+    absolute in f32 — far below the correlator noise floor.  Chosen on an
+    earlier backend where jnp.sin/cos did not fuse; kept until a
+    measurement on the card says jnp.sin is as cheap.
     """
     x = x - jnp.floor(x + 0.5)                        # [-0.5, 0.5)
     # fold |x| > 0.25 back onto the first quadrant: sin(pi - t) = sin(t)
@@ -108,9 +110,8 @@ def carrier_turns(phase0_i32, step_i32, k_i32):
 
     Built from the top 23 NCO bits directly as an f32 mantissa
     (1.0 + u/2^32 is exactly representable): 0x3F800000 | (u >> 9).  This
-    skips the u32->f32 convert, which lowers poorly on the TPU VPU; the
-    2^-23-turn truncation (~7.5e-7 rad) is far below the sine
-    polynomial's own ~4e-6 error.
+    skips the u32->f32 convert; the 2^-23-turn truncation (~7.5e-7 rad)
+    is far below the sine polynomial's own ~4e-6 error.
     """
     counts = phase0_i32 + step_i32 * k_i32
     u = counts.astype(jnp.uint32)
@@ -122,7 +123,7 @@ def carrier_sin_cos(phase0_i32, step_i32, k_i32):
     """(sin, cos) of the carrier NCO phase at sample offsets ``k``.
 
     Same phase semantics as :func:`carrier_angles` but in turns with the
-    polynomial sine — fully fusing on TPU.
+    polynomial sine — fully fusing elementwise math.
     """
     turns = carrier_turns(phase0_i32, step_i32, k_i32)
     return sin_turns(turns), sin_turns(turns + 0.25)

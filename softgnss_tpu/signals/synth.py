@@ -19,14 +19,13 @@ so ``delay_samples mod samples_per_code`` is the acquisition code phase and
 with the reference's mixing convention (I = sin * x, reference:
 tracking.py:205-207) a phase-locked PLL then yields nav bits on I_P.
 
-TPU-native execution: within each 1-ms block, code phase, carrier phase,
+Device execution: within each 1-ms block, code phase, carrier phase,
 and delay are (piecewise-)linear, so every per-ms quantity reduces to a
 host-precomputed (satellite, ms) parameter table — window-relative Q40
 chip phase, uint32 carrier counts, the at-most-one nav-bit edge per ms —
 and the device scan is pure elementwise math + one dynamic_slice of the
 code + a constant-index tile gather + a narrow one-hot contraction (the
-same gather-free pattern as the tracking correlator; data-dependent
-gathers are ~100x slower on TPU).
+same gather-free pattern as the tracking correlator).
 """
 
 from __future__ import annotations

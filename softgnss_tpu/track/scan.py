@@ -3,7 +3,7 @@
 The reference tracks channels one-by-one in Python, reading the capture file
 inside the per-millisecond hot loop (reference: tracking.py:59,132,154).  Here:
 
-* the whole capture lives in device HBM as int8; each channel consumes it
+* the whole capture lives in device memory as int8; each channel consumes it
   with a per-ms ``dynamic_slice`` — no host I/O in the loop,
 * channels are **vmapped** (and shardable over a mesh axis — see
   softgnss_tpu.parallel) instead of serialized,
@@ -180,9 +180,8 @@ def initial_state(config: ReceiverConfig, channels: Channels) -> TrackState:
 
 def _correlate_gather(config: ReceiverConfig, tables, tq, i_bb, q_bb):
     """Reference-style correlators: per-sample code lookups
-    (reference: tracking.py:164-190, 209-219).  Exact, but the three
-    data-dependent gathers are pathologically slow on TPU — used as the
-    cross-check / debug path (config.correlator_impl='gather')."""
+    (reference: tracking.py:164-190, 209-219).  Exact — the plain
+    cross-check path (config.correlator_impl='gather')."""
     half_q = chips_to_q(config.dll_correlator_spacing)
     code_pad = tables.code_pads
     # padded-code index is the ceil'd chip phase itself: pad[i] = chip i-1,
@@ -203,7 +202,7 @@ def _correlate_onehot(config: ReceiverConfig, tables, rem_q, step_q, bb2):
     the half-chip index h = ceil(S*tq) at frame sample k (code phase
     tq = rem_q + step_q*k in Q40 chips) selects E/P/L code values through
     static per-tile tables, so the per-ms compute is pure elementwise ops
-    plus two small batched matmuls — the TPU fast path.
+    plus two small batched matmuls.
 
     ``bb2`` is the baseband as ONE (2, ...) array (I plane then Q plane —
     a single producer chain; separate i/q operands make XLA split the
@@ -216,11 +215,16 @@ def _correlate_onehot(config: ReceiverConfig, tables, rem_q, step_q, bb2):
     track_tile-lane minor dimension — no interleave is ever materialized.
 
     ``h`` is evaluated with EXACT 32-bit digit arithmetic (per-tile i64
-    scalars + base-2^24 in-tile digits): a direct int64 vector formulation
-    does not fuse on TPU (int64 is emulated) and materializes an
-    (n_tiles, tile) i32 index per channel per ms — at 12 channels that is
-    ~18 MB of HBM round-trip per millisecond, several times the cost of
-    the correlator math itself.
+    scalars + base-2^24 in-tile digits) instead of a direct int64 vector
+    formulation, keeping the per-sample work in 32-bit lanes.  Whether the
+    int64 form is cheaper on a GPU has not been measured; the digit form
+    stays until it is.
+
+    Both contractions run at ``Precision.HIGHEST``: a float32 dot may
+    otherwise execute in TF32 on a GPU, whose ~3 significant digits put
+    ~5e-4 relative error on every baseband term — far above the 1e-4
+    oracle-parity budget.  (The one-hot operand is exact in any precision;
+    the baseband operand is not.)
     """
     tile = config.track_tile
     pack = config.track_pack
@@ -257,9 +261,10 @@ def _correlate_onehot(config: ReceiverConfig, tables, rem_q, step_q, bb2):
          + ((lo_hi[:, None] + s_hi * j[None, :] + (d0 >> 24)) >> 16))
     h_local = h - (tables.h_base.astype(jnp.int32) + bias)[:, None]
     # squeeze the per-sample index to int8 when the window allows: the
-    # (T, tile) index is the one large per-ms intermediate XLA materializes
-    # to HBM, and s8 quarters that traffic.  Out-of-window values (masked
-    # samples) clamp to sentinels that match no iota row.
+    # (T, tile) index is the one large per-ms intermediate XLA may
+    # materialize in device memory, and s8 quarters that traffic.
+    # Out-of-window values (masked samples) clamp to sentinels that match
+    # no iota row.
     if w < 127:
         h_local = jnp.clip(h_local, -1, w).astype(jnp.int8)
         iota_w = jnp.arange(w, dtype=jnp.int8)
@@ -268,9 +273,10 @@ def _correlate_onehot(config: ReceiverConfig, tables, rem_q, step_q, bb2):
     oh = (h_local[:, :, None] == iota_w[None, None, :]).astype(jnp.float32)
 
     bb = bb2.reshape(2, t_count, tile)                            # (2, T, tile)
-    u = jnp.einsum("tkw,ctk->twc", oh, bb,
+    hi = jax.lax.Precision.HIGHEST
+    u = jnp.einsum("tkw,ctk->twc", oh, bb, precision=hi,
                    preferred_element_type=jnp.float32)            # (T, w, 2)
-    corr = jnp.einsum("twc,twx->xc", u, tables.codes_static,
+    corr = jnp.einsum("twc,twx->xc", u, tables.codes_static, precision=hi,
                       preferred_element_type=jnp.float32)         # (3, 2)
     return (corr[0, 0], corr[1, 0], corr[2, 0],
             corr[0, 1], corr[1, 1], corr[2, 1])
@@ -401,11 +407,10 @@ def _frame_ms_packed(config: ReceiverConfig, frame32, base_ptr, tables,
 def _packed_view(signal, pack: int):
     """int16/int32 little-endian view of an int8 capture, built from 1D
     strided slices + shifts.  A direct ``reshape(-1, pack)`` + bitcast is
-    the natural spelling, but on TPU the (N/pack, pack)-shaped intermediate
-    can be materialized with its pack-wide minor dim padded to 128 lanes —
-    a 128/pack x HBM blowup that OOMs real-length captures at compile time.
-    The strided formulation stays 1D throughout; it runs once per tracking
-    call and is reused by every scan step."""
+    the natural spelling, but its (N/pack, pack)-shaped intermediate may be
+    laid out with the pack-wide minor dim padded; the strided formulation
+    stays 1D throughout.  It runs once per tracking call and is reused by
+    every scan step."""
     n = signal.shape[0] // pack * pack
     dt = jnp.int16 if pack == 2 else jnp.int32
     word = signal[0:n:pack].astype(dt) & 0xFF
@@ -438,9 +443,8 @@ def _filters_and_outputs(config: ReceiverConfig, carr_basis, active, st,
                          step_q, blk, w, corr):
     """Loop-filter updates + logged outputs from the six correlator sums.
 
-    Pure elementwise math — serves both the per-channel (scalar, vmapped)
-    and the channel-batched Pallas step.  Equations per reference
-    tracking.py:221-275.
+    Pure elementwise math on per-channel scalars (vmapped over channels).
+    Equations per reference tracking.py:221-275.
 
     With ``config.pdi_ms`` K > 1 (coherent integration beyond the
     reference's fixed 1 ms) the six sums accumulate in the state carry and
@@ -554,49 +558,6 @@ def _filters_and_outputs(config: ReceiverConfig, carr_basis, active, st,
     return new, outs
 
 
-def _frame_ms_pallas(config: ReceiverConfig, frame_pk, base_ptr, codes_t,
-                     hb_span, carr_basis, active, st: TrackState):
-    """One millisecond for ALL channels via the fused Pallas correlator.
-
-    Channel-batched drop-in for the vmapped :func:`_frame_ms_packed`: the
-    same packed frame interface (``frame_pk``: (C, track_window/pack)
-    int16/int32, ``base_ptr``: (C,) absolute sample of frame element 0),
-    the same exact int64 NCO bookkeeping and f64 loop filters in XLA —
-    only the per-sample correlator math moves into the Mosaic kernel
-    (softgnss_tpu.track.pallas_kernel).  ``codes_t``: (C, T, 3, w)
-    transposed static code tables; ``hb_span``: (C, G, 1, span) i32 static
-    table-base map (pallas_kernel.hb_span_map).
-    """
-    from softgnss_tpu.track.pallas_kernel import (PHASE_BIAS,
-                                                  fused_correlate_ms,
-                                                  phase_digits)
-
-    fs = config.sampling_freq
-    code_len_q = config.code_length * CODE_ONE
-    s_chips = config.code_freq_basis / config.sampling_freq
-    assert (subdivision(config) * s_chips * (2 * config.track_frame_pre + 64)
-            < PHASE_BIAS), "track_frame_pre too large for the phase bias"
-
-    step_q = code_step_q(st.code_freq, fs)                       # (C,) i64
-    blk = (code_len_q - st.code_rem_q + step_q - 1) // step_q
-    o = st.ptr - base_ptr                                        # (C,) i64
-    ovf = _frame_overflow(config, active, o, blk)
-
-    rem_eff = st.code_rem_q - step_q * o
-    digs, sp0, sp1, sp2 = phase_digits(config, rem_eff, step_q)
-    w = carrier_step_u32(st.carr_freq, fs)                       # (C,) i32
-    o32 = o.astype(jnp.int32)
-    phase_eff = st.carr_phase - w * o32
-    z = jnp.zeros_like(o32)
-    scal = jnp.stack([phase_eff, w, sp0, sp1, sp2, o32,
-                      blk.astype(jnp.int32), z], axis=1)
-    corr = fused_correlate_ms(config, frame_pk, scal, digs, hb_span, codes_t)
-    corr6 = tuple(corr[:, i] for i in range(6))
-    new, outs = _filters_and_outputs(config, carr_basis, active, st, step_q,
-                                     blk, w, corr6)
-    return new, outs, ovf
-
-
 def _scan_ms(config: ReceiverConfig, signal, tables: CorrelatorTables,
              carr_basis, active, n_ms: int, state0: TrackState,
              start_ms: int = 0):
@@ -629,32 +590,21 @@ def _scan_ms(config: ReceiverConfig, signal, tables: CorrelatorTables,
                                  if signal.dtype != jnp.int8 else 1)
     B = config.track_block_ms
 
-    # The capture is consumed through an int32 view when
-    # config.track_pack == 4 (the correlator tables are built in the
-    # matching byte-plane tile order — see tables.tile_starts): the
-    # batched-start per-channel buffer slice lowers to a channel loop
-    # whose row writes are tile-misaligned, and on int8 the (4,1) byte
-    # packing makes those writes ~20x slower than HBM speed;
-    # 4-samples-per-element recovers most of it.  The packed words are
-    # consumed DIRECTLY by the byte-plane correlator (_frame_ms_packed) —
-    # unpacking to sample order on TPU materializes a minor-dim-4
-    # interleave at catastrophic layouts.  The <=3-sample word-alignment
-    # shift rides the frame o-offset (a deterministic function of the
-    # anchor, so resume grouping is unaffected).
+    # The capture is consumed through an int16/int32 view when
+    # config.track_pack > 1 (the correlator tables are built in the
+    # matching byte-plane tile order — see tables.tile_starts): wider words
+    # make the batched-start per-channel buffer slice move fewer, larger
+    # elements.  The packed words are consumed DIRECTLY by the byte-plane
+    # correlator (_frame_ms_packed), so no sample-order interleave is ever
+    # materialized.  The <=3-sample word-alignment shift rides the frame
+    # o-offset (a deterministic function of the anchor, so resume grouping
+    # is unaffected).
     pack = config.track_pack
-    impl = config.resolved_correlator
-    if impl in ("pallas", "megakernel") and pack <= 1:
-        raise ValueError(
-            f"correlator_impl={impl!r} consumes the capture through the "
-            "packed int16/int32 view: need an int8 capture with "
-            "samples_per_code and track_tile divisible by track_pack_size "
-            f"(track_pack resolved to {pack})")
     if pack > 1:
         if signal.dtype == jnp.int8:
-            # in-jit strided packing: correct everywhere but slow on TPU
-            # (strided int8 slices gather at ~1 GB/s once materialized) —
-            # track() pre-packs on the host instead; this path serves the
-            # sharded callers that still ship int8 shards
+            # in-jit strided packing: track() pre-packs on the host
+            # instead; this path serves the sharded callers that still
+            # ship int8 shards
             sig_pack = _packed_view(signal, pack)
         elif signal.dtype == (jnp.int16 if pack == 2 else jnp.int32):
             # capture arrives pre-packed (a free little-endian host view)
@@ -664,24 +614,10 @@ def _scan_ms(config: ReceiverConfig, signal, tables: CorrelatorTables,
                 f"track_pack={pack} needs an int8 or pre-packed "
                 f"{'int16' if pack == 2 else 'int32'} capture, got "
                 f"{signal.dtype}")
-        if impl == "pallas":
-            from softgnss_tpu.track.pallas_kernel import hb_span_map
-
-            codes_t = jnp.transpose(jnp.asarray(tables.codes_static),
-                                    (0, 1, 3, 2)).astype(jnp.int8)  # (C,T,3,w)
-            hb_span = hb_span_map(config, tables.h_base)
-
-            def step_fn_packed(frame, base, tab, cb, act, st):
-                return _frame_ms_pallas(config, frame, base, codes_t,
-                                        hb_span, cb, act, st)
-        else:
-            # the XLA one-hot packed step: the 'onehot' path, and the
-            # megakernel's fallback when block mode is unavailable
-            # (short captures)
-            step_fn_packed = jax.vmap(
-                lambda frame, base, tab, cb, act, st: _frame_ms_packed(
-                    config, frame, base, tab, cb, act, st),
-                in_axes=(0, 0, 0, 0, 0, 0))
+        step_fn_packed = jax.vmap(
+            lambda frame, base, tab, cb, act, st: _frame_ms_packed(
+                config, frame, base, tab, cb, act, st),
+            in_axes=(0, 0, 0, 0, 0, 0))
     else:
         step_fn = jax.vmap(
             lambda frame, base, tab, cb, act, st: _frame_ms(
@@ -711,79 +647,13 @@ def _scan_ms(config: ReceiverConfig, signal, tables: CorrelatorTables,
     n_full = (n_ms - lead) // B if B > 1 else 0
     r_tail = n_ms - lead - n_full * B if B > 1 else 0
     longest = max(lead, B if n_full else 0, r_tail)
-    if impl == "megakernel":
-        from softgnss_tpu.track.tables import mega_window
-
-        eff_win = mega_window(config)
-        r_max = longest
-        # the longest segment's pre-slice must fit the capture
-        longest_need = (longest + 1) * spc + eff_win + 1024
-    else:
-        eff_win = win
-        longest_need = (longest + 1) * spc
-    use_blocks = (B > 1 and n_ms > 0 and spc < eff_win <= 2 * spc
-                  and sig_len >= longest_need)
+    use_blocks = (B > 1 and n_ms > 0 and spc < win <= 2 * spc
+                  and sig_len >= (longest + 1) * spc)
     if not use_blocks:
         (final, ovf), ys = jax.lax.scan(ms_step, (state0, zero), None, length=n_ms)
         return final, ys, ovf
 
-    if impl == "megakernel":
-        # whole-segment fused kernel: one pallas_call per (partial) block,
-        # loop filters / NCO digits in VMEM scratch, per-ms frames fetched
-        # by in-kernel DMA from the HBM block buffer (megakernel docstring)
-        from softgnss_tpu.track.megakernel import (build_frames, mega_rows,
-                                                   mega_track_segment)
-        from softgnss_tpu.track.tables import MEGA_ALIGN_W
-
-        spc_w = spc // pack
-        c_dim = int(active.shape[0])
-        win_w = eff_win // pack
-        w_slab = win_w + MEGA_ALIGN_W
-        # the pre-slice spans the channel spread (< one code period) plus
-        # the whole block plus the slab tail
-        l_blk = (r_max * spc + eff_win) // pack + spc_w + 2 * MEGA_ALIGN_W
-
-        def scan_segment(carry, base, p0: int, r: int):
-            st2, ovf2 = carry
-            # exact per-ms frame bases F(c, j) = base//4*4 + (p0+j)*spc:
-            # deterministic in the absolute millisecond, so a resumed run
-            # regroups identically.  One contiguous pre-slice around the
-            # block feeds the Pallas frames builder (exact gathers at DMA
-            # speed; the XLA batched dynamic-slice measured ~7 us/ms).
-            start_w = base // pack + p0 * spc_w              # (C,) i64
-            # inactive channels' pointers freeze while active ones walk
-            # the capture — keep them out of the pre-slice span (their
-            # frames are never read: outputs and state are active-masked)
-            any_act = jnp.max(jnp.where(active, start_w, 0))
-            start_w = jnp.where(active, start_w, any_act)
-            pres_base = jnp.clip(jnp.min(start_w), 0,
-                                 sig_len // pack - l_blk)
-            pres = jax.lax.dynamic_slice(sig_pack, (pres_base,), (l_blk,))
-            starts_rel = jnp.clip(
-                start_w - pres_base, 0,
-                l_blk - w_slab - (r - 1) * spc_w).astype(jnp.int32)
-            # fb0 from the (possibly capture-edge-clipped) builder inputs:
-            # a clipped base shows up as a too-large o and trips the
-            # overflow check instead of silently mis-framing
-            fb0 = (pres_base + starts_rel.astype(jnp.int64)) * pack
-            # the scan stacks ONLY the raw (r, C, 16) f32 kernel output;
-            # observables are decoded once post-scan (mega_finalize)
-            if config.mega_fused_frames:
-                # builder fused into the kernel: no HBM frames array
-                new, ys_raw = mega_track_segment(
-                    config, r, None, fb0, tables, carr_basis, active, st2,
-                    cap2=pres[None, :], starts_w=starts_rel)
-            else:
-                frames = build_frames(config, r, c_dim, pres[None, :],
-                                      starts_rel,
-                                      rows_pad=mega_rows(config, c_dim))
-                new, ys_raw = mega_track_segment(
-                    config, r, frames, fb0, tables, carr_basis, active, st2)
-            return (new, ovf2), ys_raw
-    else:
-        scan_segment = None  # defined below
-
-    def _scan_segment_stepwise(carry, base, p0: int, r: int):
+    def scan_segment(carry, base, p0: int, r: int):
         """Run frames for grid-block milliseconds [p0, p0+r) anchored at
         per-channel ``base`` (the block's ms-0 frame anchor).
 
@@ -819,9 +689,6 @@ def _scan_ms(config: ReceiverConfig, signal, tables: CorrelatorTables,
         return jax.lax.scan(inner, carry, jnp.arange(r, dtype=jnp.int64),
                             unroll=min(config.track_unroll, r))
 
-    if scan_segment is None:
-        scan_segment = _scan_segment_stepwise
-
     carry = (state0, zero)
     parts = []
     if lead:   # finish the grid block a resumed run stopped inside
@@ -845,11 +712,6 @@ def _scan_ms(config: ReceiverConfig, signal, tables: CorrelatorTables,
     final, ovf = carry
     ys = (parts[0] if len(parts) == 1
           else jax.tree.map(lambda *xs: jnp.concatenate(xs), *parts))
-    if impl == "megakernel":
-        from softgnss_tpu.track.megakernel import mega_finalize
-
-        ys, ovf_m = mega_finalize(config, state0.ptr, ys, carr_basis, active)
-        ovf = jnp.maximum(ovf, ovf_m)
     return final, ys, ovf
 
 
@@ -857,9 +719,7 @@ def _scan_ms(config: ReceiverConfig, signal, tables: CorrelatorTables,
 def _track_device(config: ReceiverConfig, signal, tables: CorrelatorTables,
                   carr_basis, active, n_ms: int, state0: TrackState,
                   start_ms: int = 0):
-    """Scan over milliseconds with channels vmapped (or channel-batched
-    through the fused Pallas kernel when correlator_impl='pallas' — same
-    block-mode window extraction, different per-ms correlator)."""
+    """Scan over milliseconds with channels vmapped."""
     return _scan_ms(config, signal, tables, carr_basis, active, n_ms, state0,
                     start_ms)
 
@@ -876,11 +736,9 @@ def _check_overflow(ovf) -> None:
 
 def host_pack_signal(config: ReceiverConfig, signal):
     """Pre-pack an int8 capture into its int16/int32 little-endian view on
-    the HOST (a free numpy reinterpretation): packing in-jit from device
-    int8 lowers to strided byte gathers that run at ~1 GB/s once
-    materialized (measured via jax.profiler — it dominated real pipeline
-    wall time at the reference workload).  _scan_ms accepts either form;
-    non-int8 or pack-1 inputs pass through untouched."""
+    the HOST (a free numpy reinterpretation) instead of in-jit from device
+    int8, where it lowers to strided byte gathers.  _scan_ms accepts
+    either form; non-int8 or pack-1 inputs pass through untouched."""
     pack = config.track_pack
     sig_np = np.asarray(signal)
     if pack > 1 and sig_np.dtype == np.int8:

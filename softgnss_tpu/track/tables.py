@@ -1,11 +1,12 @@
 """Static correlator tables for the gather-free tracking hot path.
 
-TPU gathers with data-dependent indices are ~40x the cost of everything
-else in the tracking step combined (the reference-style per-sample code
-lookup, tracking.py:166-190, becomes three 38k-element gathers per ms).
-The tracker instead contracts a *narrow one-hot* of the half-chip index
-against small per-tile code tables — pure elementwise + batched-matmul
-ops that XLA fuses and the MXU executes:
+The reference-style per-sample code lookup (tracking.py:166-190) is three
+38k-element data-dependent gathers per channel per ms.  The tracker
+instead contracts a *narrow one-hot* of the half-chip index against small
+per-tile code tables — pure elementwise + batched-matmul ops that XLA
+fuses.  On the H100 the plain gather (``correlator_impl='gather'``)
+measured faster per tracked ms (PERF.md); the one-hot path stays the
+default until a measured change switches it:
 
 * Sub-chip index ``h = ceil(S * tq)`` encodes all three correlator taps
   at once, where S = subdivision(config) is the smallest integer with
@@ -45,13 +46,6 @@ class CorrelatorTables(NamedTuple):
     codes_static: np.ndarray
     #: (C, n_tiles) nominal half-chip index at each tile start, minus margin
     h_base: np.ndarray
-    #: megakernel per-LANE joint code words (C, mega_n_words, mega_window)
-    #: i32 — the last word's bits 16.. carry the lane's sub-chip base
-    #: offset; a (C, 1, 1) placeholder when the megakernel is not in use.
-    #: See :func:`mega_lane_tables`
-    mega_tabs: np.ndarray = np.zeros((0, 1, 1), np.int32)
-    #: (C, n_chunks) per-chunk sub-chip base + PHASE_BIAS
-    mega_hb0: np.ndarray = np.zeros((0, 1), np.int32)
 
 
 #: margin sub-chips above/below a tile's nominal span.  Bound: remainder
@@ -137,210 +131,6 @@ def _sub_chip_tables(code_pad: np.ndarray, s: int, ds: int) -> np.ndarray:
     return np.stack([e, p, late], axis=1).astype(np.float32)
 
 
-# --- megakernel per-lane geometry --------------------------------------------
-# The multi-ms fused kernel (track.megakernel) consumes per-ms frames cut
-# at exact per-channel bases by a small Pallas gather kernel
-# (megakernel._build_frames).  Its code tables are expanded to PER-LANE
-# words, which removes the per-tile window quantization: the static
-# window only has to cover the block-mode o-drift + margins, independent
-# of the tile span, so the three taps pack into one joint word per lane
-# at the reference front end.
-
-#: the megakernel consumes the capture through the int32 view
-MEGA_PACK = 4
-#: DMA slab alignment, in int32 words (the TPU lane-tile width)
-MEGA_ALIGN_W = 128
-#: sub-chip bias keeping every in-kernel phase positive (matches
-#: pallas_kernel.PHASE_BIAS; re-declared here to avoid an import cycle)
-MEGA_PHASE_BIAS = 1 << 10
-
-
-def mega_split(config: ReceiverConfig) -> int:
-    """Row split S of the megakernel frames: each channel's per-ms window
-    is stored and processed as S sublane rows of ``mega_window/(S*pack)``
-    words, so the kernel's per-sample tensors carry S*C REAL channel rows
-    (padded to the 8-row sublane tile once, as a whole) instead of C rows
-    padded per se — at the reference C=12 this turns a 16/12 padded-row
-    waste into 24/24 packed rows (measured v5e: ~25% less kernel time and
-    ~25% less frames HBM traffic).  S=2 only when the coarser window
-    rounding (a multiple of S*pack*tile samples) costs <= 2% extra
-    window; small front ends stay S=1."""
-    mult1 = config.track_tile * MEGA_PACK
-    w = (config.samples_per_code + config.track_window_extra
-         + 2 * config.track_frame_pre)
-    w1 = -(-w // mult1) * mult1
-    w2 = -(-w // (2 * mult1)) * (2 * mult1)
-    return 2 if w2 <= 1.02 * w1 else 1
-
-
-def mega_window(config: ReceiverConfig) -> int:
-    """Static sample window of the megakernel's per-ms frames: one code
-    period + block-mode drift slack, rounded up to whole byte planes of
-    whole lane tiles in each of the ``mega_split`` row pieces.  Frames
-    are cut at EXACT per-ms bases by the Pallas frames builder
-    (megakernel._build_frames), so no DMA-alignment residual widens the
-    window."""
-    mult = config.track_tile * MEGA_PACK * mega_split(config)
-    w = (config.samples_per_code + config.track_window_extra
-         + 2 * config.track_frame_pre)
-    return (w + mult - 1) // mult * mult
-
-
-def mega_o_cov(config: ReceiverConfig) -> int:
-    """Upper bound on the in-frame offset ``o`` the per-lane tables cover."""
-    return 2 * config.track_frame_pre + config.track_window_extra
-
-
-def mega_grid(config: ReceiverConfig, default_cap: int = 25) -> tuple[int, int]:
-    """(k_tiles, t_groups) for the megakernel's chunk loop over ONE row
-    piece of its window (mega_window / mega_split samples; cf.
-    pallas_kernel.grid_shape, which uses track_window).
-
-    The default cap targets ~2400-3200-word chunk spans — measured best
-    on v5e (span 4864: 11.2 us/ms; 2432: 5.6; 256: 32 — too-large spans
-    blow the unrolled temporaries past the cache-friendly range, too-
-    small ones multiply per-chunk fixed work)."""
-    t_pp = (mega_window(config) // MEGA_PACK // mega_split(config)
-            ) // config.track_tile
-    cap = config.pallas_k_tiles or default_cap
-    k_tiles = max(d for d in range(1, min(cap + 1, t_pp + 1)) if t_pp % d == 0)
-    return k_tiles, t_pp // k_tiles
-
-
-def _mega_shift_subchips(config: ReceiverConfig) -> int:
-    """Sub-chips the code phase at a fixed frame lane can sit below the
-    o=0 nominal (cf. _frame_shift_subchips, with the wider mega o range)."""
-    s = subdivision(config)
-    s_chips = config.code_freq_basis / config.sampling_freq
-    return int(np.ceil(s * s_chips * mega_o_cov(config)))
-
-
-def mega_hb_span(config: ReceiverConfig) -> int:
-    """Worst-case per-lane sub-chip base spread across the megakernel
-    window (the ``hb_rel`` range packed into the last joint word's bits
-    16..30), including the +-6 kHz L1 Doppler scaling of the nominal
-    chip rate.  Must stay below 2^15 (mega_lane_tables raises;
-    config._mega_capable degrades 'auto' before that)."""
-    s = subdivision(config)
-    s_chips = config.code_freq_basis / config.sampling_freq
-    return int(np.ceil(s * s_chips * (1.0 + 4e-6) * mega_window(config)))
-
-
-def mega_width(config: ReceiverConfig) -> int:
-    """Joint per-lane code-word width in bits: the E tap's sub-chip window
-    plus the P/L taps' constant offsets."""
-    s = subdivision(config)
-    ds = int(round(config.dll_correlator_spacing * s))
-    return s + 4 + _mega_shift_subchips(config) + 2 * ds
-
-
-def mega_n_words(config: ReceiverConfig) -> int:
-    """i32 words per lane holding the joint code bits, with 16 bits of the
-    last word reserved for the lane's sub-chip base offset.  1 at the
-    reference front end (fs=38.192 MHz, joint width 15 bits); more only
-    for low-fs configs whose per-sample chip advance magnifies the
-    o-residual window (those run interpreted on CPU in tests, where
-    width is free)."""
-    return (mega_width(config) + 16 + 31) // 32
-
-
-def mega_lane_samples(config: ReceiverConfig) -> np.ndarray:
-    """(mega_split, mega_window/mega_split) capture-sample index of each
-    table lane, in the kernel's row/chunk-processing order: row piece q,
-    chunk cb = b*t_groups + g, lane l within the chunk handles sample
-    MEGA_PACK*(q*half_w + g*span + l) + b, half_w = win/(S*pack)."""
-    s_split = mega_split(config)
-    k_tiles, t_groups = mega_grid(config)
-    span = k_tiles * config.track_tile
-    half_w = mega_window(config) // MEGA_PACK // s_split
-    lam = np.arange(span)
-    out = []
-    for q in range(s_split):
-        ks = [MEGA_PACK * (q * half_w + g * span + lam) + b
-              for b in range(MEGA_PACK) for g in range(t_groups)]
-        out.append(np.concatenate(ks))
-    return np.stack(out)
-
-
-def mega_lane_tables(config: ReceiverConfig, prns: np.ndarray,
-                     acquired_freq: np.ndarray | None
-                     ) -> tuple[np.ndarray, np.ndarray]:
-    """Per-lane joint E/P/L code words for the megakernel.
-
-    Returns (tabs (S*C, n_words, W/S) i32, hb0 (C, 1) i32),
-    W = mega_window, S = mega_split, n_words = mega_n_words; tabs rows
-    are q-major over the S window row pieces (row q*C + i = channel i's
-    piece q, matching the kernel's packed channel-row layout).  For
-    table lane ``l`` (capture sample k(l), nominal sub-chip base hb(l)),
-    bit ``p`` of the word sequence tabs[:, 0..] (32 bits per word; the
-    last word's bits 16.. are NOT code bits) is the sign of the sub-chip
-    P-tap code at index hb(l) - ds + p, so a sample whose half-chip
-    index is h = hb(l) + h_local reads E/P/L at sequence bits h_local,
-    h_local+ds, h_local+2ds.  The last word's bits 16.. carry
-    hb(l) - hb0 (one per-channel base), and hb0 (+ MEGA_PHASE_BIAS) is
-    folded into the kernel's per-ms phase digits, so
-    h_local = exact_phase_ramp(l) - (tabs[-1] >> 16).
-    """
-    c = len(prns)
-    s = subdivision(config)
-    ds = int(round(config.dll_correlator_spacing * s))
-    if 2 * ds > 31:
-        raise ValueError(
-            f"megakernel taps read bits hc, hc+{ds}, hc+{2 * ds} of one "
-            "32-bit funnel window — 2*round(spacing*subdivision) must stay "
-            f"<= 31 (spacing={config.dll_correlator_spacing}, "
-            f"subdivision={s}); use the onehot/pallas correlators for this "
-            "spacing")
-    w_bits = mega_width(config)
-    n_words = mega_n_words(config)
-    if n_words > 16:
-        raise ValueError(
-            f"megakernel joint code width {w_bits} bits needs {n_words} "
-            "words; this front end's per-sample chip advance is too coarse "
-            "— use another correlator_impl")
-    win = mega_window(config)
-    s_split = mega_split(config)
-    cols = win // s_split
-    k2 = mega_lane_samples(config).astype(np.float64)        # (S, cols)
-    shift = _mega_shift_subchips(config)
-
-    # rows are q-major over the S row pieces: row q*c + i holds channel
-    # i's piece q (matching the kernel's packed channel-row layout)
-    tabs = np.zeros((s_split * c, n_words, cols), np.int64)
-    hb0 = np.zeros((c, 1), np.int64)
-    p_arange = np.arange(w_bits)
-    for i in range(c):
-        if prns[i] <= 0:
-            continue
-        pad = ca.padded_code(int(prns[i])).astype(np.float32)
-        g_idx = np.arange(s * 1023 + 4 * s + 8)
-        base1d = pad[np.clip((g_idx + s - 1) // s, 0, 1024)]  # P-tap sub-chip
-        doppler = (0.0 if acquired_freq is None
-                   else acquired_freq[i] - config.intermediate_freq)
-        fc_eff = config.code_freq_basis * (1.0 + doppler / config.l1_freq)
-        s_chips = fc_eff / config.sampling_freq
-        hb_all = (np.floor(s * s_chips * k2).astype(np.int64)
-                  - _H_OFFSET - shift)                       # (S, cols)
-        hb0[i] = hb_all.min()
-        if (hb_all - hb0[i]).max() >= 1 << 15:
-            raise ValueError("megakernel window too wide for the 15-bit "
-                             "per-lane sub-chip offset (subdivision or "
-                             "front end too coarse)")
-        for q in range(s_split):
-            hb = hb_all[q]
-            hb_rel = hb - hb0[i]
-            idx = hb[:, None] - ds + p_arange[None, :]       # (cols, w_bits)
-            bits = (base1d[np.clip(idx, 0, len(base1d) - 1)] > 0
-                    ).astype(np.int64)
-            for u in range(n_words):
-                sel = bits[:, 32 * u:min(w_bits, 32 * u + 32)]
-                sh = np.arange(sel.shape[1])
-                word = np.sum(sel << sh, axis=1)
-                tabs[q * c + i, u] = word - ((word >> 31) << 32)  # 2's-comp
-            tabs[q * c + i, n_words - 1] |= hb_rel << 16
-    return tabs.astype(np.int32), (hb0 + MEGA_PHASE_BIAS).astype(np.int32)
-
-
 def build_tables(config: ReceiverConfig, prns: np.ndarray,
                  acquired_freq: np.ndarray | None = None) -> CorrelatorTables:
     """Build correlator tables for a channel set.
@@ -378,9 +168,4 @@ def build_tables(config: ReceiverConfig, prns: np.ndarray,
         h_base[i] = base
         idx = base[:, None] + np.arange(w)[None, :]        # (T, w)
         codes_static[i] = sub[np.clip(idx, 0, len(sub) - 1)]
-    if config.resolved_correlator == "megakernel":
-        mt, mh = mega_lane_tables(config, prns, acquired_freq)
-    else:
-        mt = np.zeros((c, 1, 1), np.int32)
-        mh = np.zeros((c, 1), np.int32)
-    return CorrelatorTables(code_pads, codes_static, h_base, mt, mh)
+    return CorrelatorTables(code_pads, codes_static, h_base)

@@ -108,7 +108,7 @@ class TestAlmanacMergeAcrossChannels:
         merged (nav/solve.py almanac loop; the old code broke after the
         first eligible channel's decode attempt)."""
         from softgnss_tpu.nav.solve import post_navigate
-        from tests.test_postnav import (N_MS, TOW_COUNT, build_track,
+        from test_postnav import (N_MS, TOW_COUNT, build_track,
                                         travel_time, visible_constellation)
         from softgnss_tpu.nav.geodesy import geo2cart
 

@@ -4,7 +4,7 @@ The reference assumes an exact front end (initialize.py:105-107); every
 real capture has a TCXO offset.  Scenario.clock_ppm models it exactly
 (synth.synthesize_dynamic docstring): common apparent carrier bias of
 ~ -f_L1*rho, code clock scaled by 1/(1+rho), and a rho*c m/s receiver
-clock drift.  These tests close VERDICT round-3 ask #4: fixes survive
+clock drift.  These tests check that fixes survive
 +-2 ppm, the navigation clock_drift recovers the injected value, and the
 assisted-acquisition hint-bias caveat (acquire/search.py docstring) is
 exercised both ways.

@@ -1,4 +1,4 @@
-"""Near-far robustness (VERDICT round-3 ask #7).
+"""Near-far robustness.
 
 C/A cross-correlation floors at ~-21.6 dB, so a +20 dB interferer sits
 within ~2 dB of a weak satellite's own peak: the reference's

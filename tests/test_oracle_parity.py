@@ -1,10 +1,10 @@
-"""Full-chain float64 oracle parity (VERDICT round-3 ask #3).
+"""Full-chain float64 oracle parity.
 
 The textbook IF recordings the reference names (initialize.py:99,
 main.py:60) are not shipped, so chain-for-chain parity is established on
 a geometry-consistent synthetic capture: the independent NumPy oracle
 (softgnss_tpu.oracle — reference-math loops, no jit, float64) and the
-TPU receiver both process the same capture end-to-end and must agree.
+JAX receiver both process the same capture end-to-end and must agree.
 
 Two layers:
 * nav-stage EXACT parity: both navigation implementations consume the

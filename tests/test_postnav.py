@@ -18,7 +18,7 @@ from softgnss_tpu.nav.orbit import satellite_positions
 from softgnss_tpu.nav.preamble import find_preambles
 from softgnss_tpu.nav.pvt import SPEED_OF_LIGHT
 from softgnss_tpu.nav.solve import post_navigate
-from tests.test_geodesy_pvt import circular_eph
+from test_geodesy_pvt import circular_eph
 
 TOW_COUNT = 70000          # multiple of 5 -> frames start here
 N_MS = 37000
@@ -53,7 +53,7 @@ def travel_times(rx, eph, t_tx):
     """Signal flight time(s) from satellite (at transmit times) to rx, with
     earth-rotation correction — the same model the PVT solver inverts.
     Vectorized NumPy (uses the independent orbit oracle)."""
-    from tests.test_geodesy_pvt import numpy_satpos_oracle
+    from test_geodesy_pvt import numpy_satpos_oracle
 
     t_tx = np.atleast_1d(np.asarray(t_tx, np.float64))
     pos, _ = numpy_satpos_oracle(t_tx, eph)       # (3, T)

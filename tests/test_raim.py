@@ -19,7 +19,7 @@ import pytest
 import softgnss_tpu as sg
 from softgnss_tpu.nav.geodesy import geo2cart
 from softgnss_tpu.nav.solve import post_navigate
-from tests.test_postnav import (TOW_COUNT, FakeTrack, build_track,
+from test_postnav import (TOW_COUNT, FakeTrack, build_track,
                                 visible_constellation)
 
 #: +600 m pseudorange bias — far above the few-mm observable noise of the

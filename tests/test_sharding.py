@@ -1,7 +1,7 @@
 """Multi-device sharding tests on the 8-virtual-CPU-device mesh.
 
 conftest.py sets xla_force_host_platform_device_count=8, the standard
-stand-in for a TPU slice; the same code paths drive real meshes.
+stand-in for a multi-GPU host; the same code paths drive real meshes.
 """
 
 import jax
@@ -48,6 +48,17 @@ def capture(cfg):
 
 def test_device_count():
     assert jax.device_count() >= 8, "conftest must provide 8 virtual devices"
+
+
+@pytest.mark.parametrize("shape", [(1, 4), (4, 1), (2, 4)])
+def test_make_mesh_plain_device_order(cfg, shape):
+    """The cards of one host are joined all to all: the mesh takes the
+    devices in plain order, shaped (time, channel)."""
+    mesh = make_mesh({cfg.time_axis: shape[0], cfg.channel_axis: shape[1]})
+    assert mesh.axis_names == (cfg.time_axis, cfg.channel_axis)
+    assert mesh.devices.shape == shape
+    n = shape[0] * shape[1]
+    assert list(mesh.devices.flat) == jax.devices()[:n]
 
 
 class TestShardedAcquisition:

@@ -17,8 +17,8 @@ from softgnss_tpu.nav.message import (UtcParams, build_nav_stream,
                                       load_ephemerides, load_utc,
                                       save_ephemerides)
 from softgnss_tpu.nav.solve import post_navigate
-from tests.test_geodesy_pvt import circular_eph
-from tests.test_postnav import TOW_COUNT, build_track, visible_constellation
+from test_geodesy_pvt import circular_eph
+from test_postnav import TOW_COUNT, build_track, visible_constellation
 
 #: realistic 2020s broadcast values
 UTC = UtcParams(a0=-2.793967724e-9, a1=-7.105427358e-15, t_ot=147456.0,
